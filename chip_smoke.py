@@ -301,6 +301,42 @@ def lazy_plane(F, n: int, seed: int, terms: int, device) -> torch.Tensor:
     return acc.contiguous()
 
 
+def sqrt_radicands(n: int, seed: int, device) -> torch.Tensor:
+    """(20, n) Fq radicands in Montgomery form: random squares and random
+    non-squares (the generator times a square) on alternate lanes, every
+    third lane lazy (plus p); in the first lanes 0, 1, p-1 and what the
+    decode takes the root of for the three kinds of invalid encoding
+    (``corrupted_encodings``: v >= q, whose v it zeroes, so -1; a v whose
+    u^2 is no square; a ZIP 216 negative zero, so 0)."""
+    from jubjub_tpu_torch import oracle
+    from jubjub_tpu_torch.fields import mont
+    from jubjub_tpu_torch.fields.element import FQ_SPEC as F
+    from jubjub_tpu_torch.native import ints_to_limbs
+    x = lazy_plane(F, n, seed, 1, device)
+    sq = mont.square(F, x)
+    nonsq = mont.mul(F, sq, mont.const_mont(F, F.generator, (n,), device))
+    lane = torch.arange(n, device=device)
+    v = torch.where(lane % 2 == 0, sq, nonsq)
+    v = torch.where(lane % 3 == 0, mont.sub(F, v, torch.zeros_like(v), k=1), v)
+    q, d = oracle.Q, oracle.EDWARDS_D
+    bad, lanes = corrupted_encodings(np.zeros((32, 126), np.uint8), 63)
+    head = [0, 1, q - 1]
+    for i in lanes:
+        y = int.from_bytes(bytes(bad[:, i]), "little") & ((1 << 255) - 1)
+        y = 0 if y >= q else y
+        head.append((y * y - 1) * pow(1 + d * y * y, -1, q) % q)
+    head = [h * F.R % F.p for h in head][:n]
+    v[:, :len(head)] = torch.from_numpy(ints_to_limbs(head)).to(device)
+    return v.contiguous()
+
+
+def canonical_where(ok: torch.Tensor, root: torch.Tensor) -> torch.Tensor:
+    """The canonical form of ``root`` where ``ok``, 0 elsewhere."""
+    from jubjub_tpu_torch.fields import mont
+    from jubjub_tpu_torch.fields.element import FQ_SPEC
+    return torch.where(ok, mont.to_canonical(FQ_SPEC, root), 0)
+
+
 def check_equal(name: str, got, want) -> int:
     """Max |got - want| over all planes; fails unless it is 0."""
     err = 0
@@ -338,6 +374,8 @@ def check_kernels(device):
                                                mont_mul_chain_plain,
                                                ops_per_element)
     from jubjub_tpu_torch.ops.scan import prefix_scan, prefix_scan_plain
+    from jubjub_tpu_torch.ops.sqrt import fq_sqrt, fq_sqrt_plain
+    from jubjub_tpu_torch.ops.sqrt import op_counts as sqrt_op_counts
 
     cases = []
     main = {}
@@ -347,20 +385,22 @@ def check_kernels(device):
         return [x] if isinstance(x, torch.Tensor) else list(x)
 
     def measure(kernel, variant, lanes, fn, plain_fn, reps, is_main,
-                inputs, macs, kname=None):
+                inputs, macs, kname=None, post=None):
         """Hold ``fn()`` (the wrapper on CUDA tensors) against ``plain_fn()``
         on the same inputs, time both, and compute the bound (``macs``: the
         int32 operations of the whole call).  ``is_main``: True for the
         kernel's main-path case, "spine" for a case at a spine shape, "const"
         for one with a constant's digits on every lane (all three also get
         ``device_ms``).  ``kname``: the kernel's name in the
-        profiler's events, if not ``<kernel>_kernel``."""
-        got = as_planes(fn())
+        profiler's events, if not ``<kernel>_kernel``.  ``post``: applied
+        to both results before they are compared, outside the timing."""
+        got = as_planes(post(fn()) if post else fn())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want = as_planes(plain_fn())
+        want = plain_fn()
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        want = as_planes(post(want) if post else want)
         err = check_equal(f"{kernel} {variant} n={lanes}", got, want)
         del want
         b_ms, by = bound(nbytes(*inputs, *got), macs)
@@ -543,6 +583,22 @@ def check_kernels(device):
                 lambda: prefix_scan_plain(x), 5, is_main, (x,),
                 8 * macs_mul(FQ_SPEC) * nb * run * ln)
     del niels, slices
+
+    # fq_sqrt: the decode's 2^20 lanes, 2^18 and a ragged count; ok exactly,
+    # the root as a field element (after to_canonical; the kernel's lazy
+    # limbs are not always the plain version's) on the lanes where it is
+    # defined, a square's
+    counts = sqrt_op_counts()
+    for lanes in (N_MSM, 1 << 18, RAGGED):
+        a = sqrt_radicands(lanes, SEED + 80, device)
+        measure("fq_sqrt", "squares, non-squares, invalid encodings' "
+                "radicands", lanes, lambda: fq_sqrt(FQ_SPEC, a),
+                lambda: fq_sqrt_plain(FQ_SPEC, a), 5, lanes == N_MSM, (a,),
+                (counts["square"] * macs_square(FQ_SPEC)
+                 + counts["mul"] * macs_mul(FQ_SPEC)
+                 + counts["reduce"] * macs_reduce(FQ_SPEC)) * lanes,
+                post=lambda r: (canonical_where(r[1], r[0]), r[1]))
+        del a
 
     # the int32 probes: the reference's shapes (the phase roofline times
     # them) and a ragged one at a short chain
@@ -1090,6 +1146,8 @@ def drive_msm_path(which: str, device):
         needed = ("mont_mul", "mont_square", "ladder", "prefix_scan")
     else:
         needed = ("mont_mul", "mont_square", "ladder", "msm_window_sums")
+    if which == "e2e":
+        needed += ("fq_sqrt",)
     for name in needed:
         if counts[name] <= 0:
             fail(f"path_{which}: kernel {name} was never launched")
@@ -2062,6 +2120,9 @@ REPLACES = {
     "ladder_affine": ("jubjub_tpu_torch/ops/csrc/ladder.cu",
                       "jubjub_tpu/curve/scalar_mul.py:279 mul_affine (XLA; "
                       "no Pallas kernel)"),
+    "fq_sqrt": ("jubjub_tpu_torch/ops/csrc/sqrt.cu",
+                "jubjub_tpu/fields/sqrt.py:48 _sqrt_tonelli_shanks (XLA; "
+                "no Pallas kernel)"),
 }
 
 

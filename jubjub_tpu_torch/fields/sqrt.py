@@ -82,9 +82,16 @@ def _sqrt_tonelli_shanks(F: FieldSpec, a: torch.Tensor):
 
 
 def sqrt(F: FieldSpec, a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(sqrt(a), is_square).  Non-residues yield ok=False (value undefined)."""
+    """(sqrt(a), is_square).  Non-residues yield ok=False (value undefined).
+    A tensor of a field with s > 1 (Fq) that the kernels take
+    (``mont._to_kernel``: on the card, outside ``mont.plain_only``) goes
+    through the ``fq_sqrt`` kernel, one launch; the root is then the same
+    field element, its lazy limbs not always these."""
     if F.s == 1:
         return _sqrt_p34(F, a)
+    if mont._to_kernel(a):
+        from ..ops.sqrt import fq_sqrt
+        return fq_sqrt(F, a)
     return _sqrt_tonelli_shanks(F, a)
 
 

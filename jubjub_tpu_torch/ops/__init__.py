@@ -10,12 +10,13 @@ def _wrappers():
     from .msm import msm_window_sums
     from .roofline import int_chain, mont_mul_chain
     from .scan import prefix_scan
+    from .sqrt import fq_sqrt
     return {"mont_mul": mont_mul, "mont_square": mont_square,
             "fixed_base": fixed_base, "ladder": ladder,
             "msm_window_sums": msm_window_sums,
             "ladder_signed": ladder_signed, "prefix_scan": prefix_scan,
             "int_chain": int_chain, "mont_mul_chain": mont_mul_chain,
-            "ladder_affine": ladder_affine}
+            "ladder_affine": ladder_affine, "fq_sqrt": fq_sqrt}
 
 
 def launch_counts() -> dict:

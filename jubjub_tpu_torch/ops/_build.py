@@ -19,7 +19,9 @@ The field constants the kernels use (p, k*p, -p^-1 mod 2^13, R mod p, the
 curve's 2d) are not typed into the sources.  ``constants_header`` generates
 ``field_constants.cuh`` from the package's ``FieldSpec`` objects and the
 oracle's curve parameters, so the kernels and the tensor-level code cannot
-disagree about them.
+disagree about them.  ``sqrt_constants_header`` generates
+``sqrt_constants.cuh`` the same way: the schedule of Fq's exponent
+(t-1)/2 and the 2-Sylow constants of its square root (``csrc/sqrt.cu``).
 
 ``build_host`` compiles the same sources as plain C++ with the host compiler:
 the lane functions then run in a loop on the CPU.  Only the test suite uses
@@ -47,7 +49,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_ROOT = os.path.join(_HERE, "build")
 
 KERNEL_SOURCES = ("mont", "fixed_base", "ladder", "msm", "scan",
-                  "roofline")  # csrc/<name>.cu
+                  "roofline", "sqrt")  # csrc/<name>.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC", "-x", "c++")
@@ -74,12 +76,14 @@ ARGTYPES = {
     "jj_prefix_scan": [_P, _P, _L, _L, _L, _I, _I, _P],
     "jj_int_chain": [_I, _P, _P, _P, _I, _L, _I, _P],
     "jj_mont_mul_chain": [_P, _P, _P, _I, _L, _I, _P],
+    "jj_fq_sqrt": [_P, _P, _P, _L, _I, _P],
 }
 FUNCTIONS = {"mont": ("jj_mont_mul", "jj_mont_square"),
              "fixed_base": ("jj_fixed_base",),
              "ladder": ("jj_ladder", "jj_ladder_signed", "jj_ladder_affine"),
              "msm": ("jj_msm_window_sums",), "scan": ("jj_prefix_scan",),
-             "roofline": ("jj_int_chain", "jj_mont_mul_chain")}
+             "roofline": ("jj_int_chain", "jj_mont_mul_chain"),
+             "sqrt": ("jj_fq_sqrt",)}
 
 KARATSUBA_FLAGS = ("-DJJ_MUL_KARATSUBA",)
 
@@ -162,6 +166,81 @@ struct CurveC {{  // Montgomery forms over Fq
 """
 
 
+def sqrt_exponent_steps(F) -> list[tuple[int, int]]:
+    """The schedule of a^((t-1)/2) in ``csrc/sqrt.cu``: left-to-right
+    windows of at most two bits over the exponent's bits, each ending in a
+    set bit, so that a window is a^1 or a^3.  Returns [(squarings,
+    multiplier)]: the first entry is (0, m), the start acc = a^m; each later
+    one squares acc that many times, then multiplies it by a^multiplier
+    (none for 0, which only trailing zero bits give)."""
+    bits = bin((F.t - 1) // 2)[2:]
+    steps, squarings, i = [], 0, 0
+    while i < len(bits):
+        if bits[i] == "0":
+            squarings, i = squarings + 1, i + 1
+            continue
+        width = 2 if bits[i + 1:i + 2] == "1" else 1
+        steps.append((squarings + width if steps else 0, 2 ** width - 1))
+        squarings, i = 0, i + width
+    if squarings:
+        steps.append((squarings, 0))
+    return steps
+
+
+def _table(name: str, rows) -> str:
+    body = ",\n    ".join(_row(r) for r in rows)
+    return (f"JJ_TABLE int32_t {name}[{len(rows)}][{NLIMBS}] = {{\n"
+            f"    {body}}};\n")
+
+
+def sqrt_constants_header() -> str:
+    """Text of ``sqrt_constants.cuh``: Fq's square root, p - 1 = 2^s * t
+    (``fields/sqrt.py:_sqrt_tonelli_shanks`` has the algorithm; the 2-Sylow
+    tables are its own, ``_sylow_consts``)."""
+    from ..fields.element import FQ_SPEC
+    from ..fields.sqrt import _sylow_consts
+    F = FQ_SPEC
+    steps = sqrt_exponent_steps(F)
+    cinv_pows, half_pows = (t.T.tolist() for t in _sylow_consts(F, "cpu"))
+    return f"""// GENERATED by jubjub_tpu_torch/ops/_build.py from FieldSpec; do not edit.
+#pragma once
+#include "field_constants.cuh"
+// Tables indexed by a loop counter: constant memory on the card (the
+// index is the same in every thread of a warp, a broadcast read).
+#ifdef __CUDACC__
+#define JJ_TABLE static __constant__
+#else
+#define JJ_TABLE static const
+#endif
+
+namespace jj {{
+
+struct FqSqrtC {{  // Fq: p - 1 = 2^S * t, t odd
+  static constexpr int S = {F.s};
+  static constexpr int NSTEPS = {len(steps)};
+  static JJ_CX int32_t minus_one(int j) {{  // Montgomery form of p - 1
+    constexpr int32_t T[{NLIMBS}] = {_row(F.np_mont(F.p - 1))};
+    return T[j];
+  }}
+}};
+
+// a^((t-1)/2): step k squares acc (FQ_SQRT_STEPS[k] >> 2) times, then
+// multiplies it by a^(FQ_SQRT_STEPS[k] & 3) (1, 3, or 0: none); step 0
+// starts acc = a^(FQ_SQRT_STEPS[0] & 3).  (ops/_build.py:
+// sqrt_exponent_steps)
+JJ_TABLE int32_t FQ_SQRT_STEPS[{len(steps)}] = {_row(4 * q + m for q, m in steps)};
+// cinv^(2^i), cinv = 1 / ROOT_OF_UNITY, Montgomery form
+{_table("FQ_SQRT_CINV_POW", cinv_pows)}
+// the root's corrections cinv^(2^(i-1)), 1 at i = 0, Montgomery form
+{_table("FQ_SQRT_HALF_POW", half_pows)}
+}}  // namespace jj
+"""
+
+
+GENERATED = {"field_constants.cuh": constants_header,
+             "sqrt_constants.cuh": sqrt_constants_header}
+
+
 def _source_files() -> list[str]:
     return sorted(f for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh")))
 
@@ -174,18 +253,20 @@ def source_key(flags=NVCC_FLAGS, karatsuba: bool | None = None) -> str:
         h.update(f.encode())
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(fh.read())
-    h.update(constants_header().encode())
+    for make in GENERATED.values():
+        h.update(make().encode())
     h.update(" ".join((*flags, *phase_flags(karatsuba))).encode())
     return h.hexdigest()[:16]
 
 
 def _write_constants(out_dir: str) -> None:
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "field_constants.cuh")
-    tmp = f"{path}.{os.getpid()}.tmp"
-    with open(tmp, "w") as fh:
-        fh.write(constants_header())
-    os.replace(tmp, path)
+    for name, make in GENERATED.items():
+        path = os.path.join(out_dir, name)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as fh:
+            fh.write(make())
+        os.replace(tmp, path)
 
 
 # ---------------------------------------------------------------------------
@@ -248,9 +329,9 @@ def parse_ptxas(log: str) -> dict:
 
 def kernel_label(entry: str) -> str:
     """Readable name of a mangled kernel entry function, e.g.
-    ``mont_mul_kernel<Fq>``, ``fixed_base_kernel<signed>`` or
-    ``int_chain_kernel<mul>``."""
-    m = re.search(r"(mont_mul_chain|mont_mul|mont_square|fixed_base"
+    ``mont_mul_kernel<Fq>``, ``fixed_base_kernel<signed>``,
+    ``int_chain_kernel<mul>`` or ``fq_sqrt_kernel``."""
+    m = re.search(r"(mont_mul_chain|mont_mul|mont_square|fixed_base|fq_sqrt"
                   r"|ladder_affine|ladder"
                   r"|msm_window_sums|prefix_scan|int_chain)_kernel"
                   r"|fe_mul|fe_square|pt_double|pt_add_extended_niels"

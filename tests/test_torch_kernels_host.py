@@ -35,6 +35,8 @@ from jubjub_tpu_torch.ops.ladder import (ladder, ladder_affine_plain,
 from jubjub_tpu_torch.ops import msm as msm_ops
 from jubjub_tpu_torch.ops import roofline as ro
 from jubjub_tpu_torch.ops.scan import prefix_scan_plain
+from jubjub_tpu_torch.ops.sqrt import fq_sqrt
+from jubjub_tpu_torch.fields.sqrt import _sqrt_tonelli_shanks
 from jubjub_tpu_torch.parallel.pippenger import _niels_records
 
 from helpers_torch import CPU, EXT, limb_plane, rand_ints, t
@@ -478,6 +480,61 @@ def test_mont_mul_chain_lanes(phase_libs):
     assert rc == 0 and torch.equal(out, ro.mont_mul_chain_plain(a, b, 9))
 
 
+def sqrt_radicands():
+    """N Fq radicands as integer values of limb planes (Montgomery
+    residues): 0, 1 and p-1 and their lazy forms in [p, 2p), squares and
+    non-squares (the generator times a square), each square or non-square
+    lazy on every third lane, and raw values in [0, 2p)."""
+    F = FQ_SPEC
+    m = lambda v: v % F.p * F.R % F.p  # noqa: E731
+    vals = [0, F.p, m(1), m(1) + F.p, m(F.p - 1), m(F.p - 1) + F.p]
+    xs = rand_ints(30, 40, F.p)
+    for i, x in enumerate(xs):
+        v = m(x * x) if i % 2 == 0 else m(F.generator * x * x)
+        vals.append(v + F.p if i % 3 == 0 else v)
+    return vals + rand_ints(31, N - len(vals), 2 * F.p)
+
+
+def test_fq_sqrt_lanes(phase_libs):
+    """The host-built ``jj_fq_sqrt`` against ``_sqrt_tonelli_shanks`` at 67
+    lanes: ``ok`` exactly, the root as a field element on the square lanes
+    (after ``to_canonical``; a non-square's root is undefined), below 2p,
+    and the oracle's verdict on every lane."""
+    F = FQ_SPEC
+    vals = sqrt_radicands()
+    a = t(limb_plane(vals))
+    root, ok = torch.empty_like(a), torch.empty(N, dtype=torch.bool)
+    rc = phase_libs["sqrt"].jj_fq_sqrt(a.data_ptr(), root.data_ptr(),
+                                       ok.data_ptr(), N, 128, None)
+    want_root, want_ok = _sqrt_tonelli_shanks(F, a)
+    assert rc == 0 and torch.equal(ok, want_ok)
+    rinv = pow(F.R, -1, F.p)
+    assert ok.tolist() == [oracle.sqrt_q(v * rinv % F.p) is not None
+                           for v in vals]
+    canon = mont.to_canonical(F, root)
+    assert torch.equal(canon[:, ok], mont.to_canonical(F, want_root)[:, ok])
+    for i in torch.nonzero(ok).flatten().tolist():
+        r = sum(int(x) << (13 * j) for j, x in enumerate(root[:, i].tolist()))
+        assert r < 2 * F.p and r * r * rinv % F.p == vals[i] % F.p, i
+    assert ok[:6].tolist() == [True] * 6  # 0, 1, p-1 = -1: squares (p = 1 mod 4)
+    assert not canon[:, :2].any()
+
+
+def test_fq_sqrt_refuses_bad_shapes(libs):
+    """The entry point refuses a block size off a warp, past 1024 or none,
+    and a negative lane count (-1); the wrapper refuses another field, a
+    plane that is not int32 and one without 20 limbs, before any launch."""
+    a = t(limb_plane(sqrt_radicands()))
+    root, ok = torch.empty_like(a), torch.empty(N, dtype=torch.bool)
+    for n, threads in ((N, 48), (N, 2048), (N, 0), (-1, 128)):
+        rc = libs["sqrt"].jj_fq_sqrt(a.data_ptr(), root.data_ptr(),
+                                     ok.data_ptr(), n, threads, None)
+        assert rc == -1, (n, threads)
+    for F, x in ((FR_SPEC, a), (FQ_SPEC, a.long()), (FQ_SPEC, a[:19])):
+        with pytest.raises(ValueError, match="fq_sqrt"):
+            fq_sqrt(F, x)
+
+
 @pytest.mark.parametrize("n,blocks,chunk", [(67, 1, 32), (20, 3, 32),
                                              (4099, 64, 6), (5, 8, 32)],
                          ids=["one-block", "under-a-chunk", "ragged-4099",
@@ -549,6 +606,23 @@ def test_generated_constants_follow_the_field_specs():
     for F in (FQ_SPEC, FR_SPEC):
         assert "{" + ", ".join(str(int(x)) for x in F.p_limbs) + "}" in text
         assert f"return {int(F.inv_limb)}u;" in text
+    # Fq's square root: -1, the exponent's schedule, the 2-Sylow tables
+    F = FQ_SPEC
+    sq = _build.sqrt_constants_header()
+    mont_row = lambda v: "{" + ", ".join(  # noqa: E731
+        str(x) for x in F.np_mont(v).tolist()) + "}"
+    assert mont_row(F.p - 1) in sq
+    steps = _build.sqrt_exponent_steps(F)
+    e = steps[0][1]
+    for squarings, mult in steps[1:]:
+        assert mult in (0, 1, 3)
+        e = e * 2 ** squarings + mult
+    assert e == (F.t - 1) // 2 and steps[0][0] == 0
+    assert "{" + ", ".join(str(4 * q + m) for q, m in steps) + "}" in sq
+    cinv = [pow(F.root_of_unity_inv, 2 ** i, F.p) for i in range(F.s)]
+    for i in range(F.s):
+        assert mont_row(cinv[i]) in sq
+        assert mont_row(cinv[i - 1] if i else 1) in sq
     assert len(_build.source_key()) == 16
     assert _build.source_key() != _build.source_key(flags=("-O0",))
     assert _build.kernel_label(
@@ -573,6 +647,8 @@ def test_generated_constants_follow_the_field_specs():
         == "mont_mul_chain_kernel"
     assert _build.kernel_label("_ZN2jj18prefix_scan_kernelEPKiPillli") \
         == "prefix_scan_kernel"
+    assert _build.kernel_label("_ZN2jj14fq_sqrt_kernelEPKiPiPhl") \
+        == "fq_sqrt_kernel"
 
 
 def test_ranks_never_build(tmp_path, monkeypatch):
