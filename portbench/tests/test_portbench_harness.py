@@ -5,6 +5,7 @@ the card would run it)."""
 
 import json
 import os
+import pathlib
 import re
 import shutil
 
@@ -64,6 +65,9 @@ def test_every_file_a_cell_names_exists(manifest):
         assert set(cell.mix) == {"kind", *gen.PARAMS}
         got = cell.metrics
         assert "setup_s" in {m["name"] for m in got["end_to_end"]}
+        rates = [m["name"] for m in got["end_to_end"]
+                 if m["unit"].endswith("/s")]
+        assert len(rates) == 1, (w["name"], rates)
         assert len(got["end_to_end"]) >= 2 and got["per_layer"]
     for m in manifest["end_to_end"] + manifest["per_layer"]:
         assert os.path.exists(os.path.join(BENCH, "metrics", f"{m['name']}.py"))
@@ -108,41 +112,73 @@ def test_a_new_cell_needs_only_new_files(tmp_path, manifest):
                                    "setup_s"}
 
 
-def test_a_new_kind_of_path_needs_only_new_files(tmp_path, manifest):
+def _metric_files(bench) -> dict:
+    return {p.name: p.read_bytes()
+            for p in pathlib.Path(bench, "metrics").glob("*.py")}
+
+
+# kind copied -> (its configuration, its traffic mix at a tiny size)
+KINDS = {
+    "ivk_scan": ("sapling-ivk-scan", "scan-batch1m-1ivk",
+                 dict(outputs=24, invalid=3)),
+    "batch_verify": ("redjubjub-batch-verify", "verify-batch512k",
+                     dict(signatures=12)),
+}
+
+
+@pytest.mark.parametrize("kind, rate", [
+    ("ivk_scan", "scan_outputs_per_s"),
+    ("batch_verify", "verify_sigs_per_s"),
+    ("ivk_scan", "verify_sigs_per_s"),
+    ("ivk_scan", "new_per_s"),
+])
+def test_a_new_kind_of_path_needs_only_new_files(tmp_path, manifest, kind,
+                                                 rate):
     """A new kind of deployment, with its path, reference (its controls
-    and faults with it), generator and rate's reader as new files, a
-    configuration and a traffic mix naming it, and a cell: the harness runs
-    the cell, and the controls run over it."""
+    and faults with it) and generator as new files, a configuration and a
+    traffic mix naming it, and a cell: the harness runs the cell and
+    reports the rate, and the controls run over it.  A rate the benchmark
+    has is reported through the cell's entry and its name in the rate's
+    ``workloads`` alone, with no file under ``metrics/`` added or edited; a
+    rate it has not (``new_per_s``) brings its reader."""
     bench = tmp_path / "portbench"
     shutil.copytree(BENCH, bench, ignore=shutil.ignore_patterns("__pycache__"))
+    config, mix, tiny_sizes = KINDS[kind]
     for sub in ("paths", "reference", "generators"):
-        shutil.copy(bench / sub / "ivk_scan.py", bench / sub / "new_kind.py")
+        shutil.copy(bench / sub / f"{kind}.py", bench / sub / "new_kind.py")
     (bench / "configs" / "new-config.json").write_text(json.dumps(
-        dict(harness.read_json(BENCH, "configs", "sapling-ivk-scan.json"),
+        dict(harness.read_json(BENCH, "configs", f"{config}.json"),
              name="new-config", path="new_kind")))
     (bench / "traffic" / "new-mix.json").write_text(json.dumps(
-        dict(harness.read_json(BENCH, "traffic", "scan-batch1m-1ivk.json"),
-             kind="new_kind", outputs=24, invalid=3)))
+        dict(harness.read_json(BENCH, "traffic", f"{mix}.json"),
+             kind="new_kind", **tiny_sizes)))
     (bench / "workloads" / "new-cell.json").write_text(json.dumps(
         {"config": "new-config", "traffic": "new-mix", "chips": 1,
          "why": "a test's cell"}))
-    (bench / "metrics" / "new_per_s.py").write_text(
-        "def read(run):\n    if run.kind != 'new_kind':\n        return None\n"
-        "    return run.work_done / run.window_s\n")
     m = json.loads(json.dumps(manifest))
     m["configs"].append(dict(m["configs"][0], name="new-config",
                              file="portbench/configs/new-config.json"))
     m["workloads"].append({"name": "new-cell", "config": "new-config",
                            "traffic": "new-mix", "chips": 1,
                            "why": "a test's cell"})
-    m["end_to_end"].append({"name": "new_per_s", "unit": "outputs/s",
-                            "better": "higher", "bound": 0.01,
-                            "source": "host_clock", "workloads": ["new-cell"]})
+    if rate == "new_per_s":
+        (bench / "metrics" / "new_per_s.py").write_text(
+            "def read(run):\n    return run.work_done / run.window_s\n")
+        m["end_to_end"].append({"name": "new_per_s", "unit": "outputs/s",
+                                "better": "higher", "bound": 0.01,
+                                "source": "host_clock",
+                                "workloads": ["new-cell"]})
+    else:
+        for x in m["end_to_end"]:
+            if x["name"] == rate:
+                x["workloads"].append("new-cell")
+        assert _metric_files(bench) == _metric_files(BENCH)
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(m))
     cell = harness.load_cell("new-cell", str(tmp_path))
     res = harness.run_cell(cell, tiny.SEED, 0.0, False, device="cpu")
     assert res["correct"]
-    assert set(res["metrics"]) == {"new_per_s", "setup_s"}
+    assert set(res["metrics"]) == {rate, "setup_s"}
+    assert res["metrics"][rate]["value"] > 0
     out = control.readings(cell, tiny.SEED, 0.0, "cpu")
     assert len(out) == 4 and not any(r["correct"] for r in out)
 
