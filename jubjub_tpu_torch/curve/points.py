@@ -27,7 +27,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .. import oracle
+from .. import oracle, stages
 from ..fields import Fq, mont
 from ..fields.element import FQ_SPEC
 from ..fields.spec import NLIMBS
@@ -501,6 +501,67 @@ def reduce_sum(p: ExtendedPoint, axis: int,
         p = s
         n = p.shape[axis]
     return map_point(lambda x: x.squeeze(larr), p)
+
+
+def segment_sum(p: ExtendedPoint, offsets: torch.Tensor) -> ExtendedPoint:
+    """Sums of contiguous segments of a batch of shape (N,).
+
+    ``offsets``: int64 (S + 1,), nondecreasing from 0 to N; segment ``s`` is
+    the lanes ``[offsets[s], offsets[s + 1])``.  Returns a batch of shape
+    (S,): each segment's sum, the identity for an empty segment.
+
+    A segmented inclusive scan in the manner of Hillis and Steele.  At step
+    d = 0, 1, ..., every lane i at least 2^d lanes past the start of its
+    segment becomes ``acc[i - 2^d] + acc[i]``: the earlier partial sum adds
+    the later one as an extended Niels point.  After ceil(log2 L) steps, L
+    the longest segment, a segment's last lane holds its sum.  The lanes are
+    sorted once by how far into their segment they lie, so that each step
+    adds only the lanes that take part: sum over the segments of
+    max(0, length - 2^d) at step d, worked out on the host from the
+    offsets' copy there.  So offsets that lie on the host make the scan wait
+    for nothing on the card (they go up once, pinned); offsets that lie on
+    the card are read back once.  The launches grow with log2 L, not with
+    N.  Stage mark (``stages``): "segment_sum"."""
+    if len(p.shape) != 1:
+        raise ValueError(f"segment_sum: expected a batch of shape (N,), got "
+                         f"{p.shape}")
+    if (offsets.ndim != 1 or offsets.shape[0] < 1
+            or offsets.is_floating_point()):
+        raise ValueError(f"segment_sum: offsets must be integers (S + 1,), "
+                         f"got {offsets.dtype} {tuple(offsets.shape)}")
+    dev = p.device
+    (n,), nseg = p.shape, offsets.shape[0] - 1
+    host = offsets.to(device="cpu", dtype=torch.int64)
+    lengths = host.diff()
+    longest = int(lengths.max()) if nseg else 0
+    counts = [int((lengths - (1 << d)).clamp_(min=0).sum())
+              for d in range(max(longest - 1, 0).bit_length())]
+    if offsets.device != dev:
+        offsets = (host.pin_memory() if dev.type == "cuda" else host).to(
+            dev, non_blocking=True)
+    offsets = offsets.to(torch.int64)
+    ident = ExtendedPoint.identity((nseg,), dev)
+    if n == 0 or nseg == 0:
+        stages.mark("segment_sum")
+        return ident
+    lane = torch.arange(n, device=dev)
+    seg = torch.searchsorted(offsets[1:], lane, right=True).clamp(max=nseg - 1)
+    pos = lane - offsets[seg]  # lanes into the segment
+    order = torch.argsort(pos, descending=True, stable=True)
+    acc = map_point(lambda x: x.clone(), p)
+    for d, cnt in enumerate(counts):
+        idx = order[:cnt]
+        lo = map_point(lambda x: x[:, idx - (1 << d)], acc)
+        hi = map_point(lambda x: x[:, idx], acc)
+        s = lo.add_extended_niels(hi.to_niels())
+        for c in dataclasses.fields(ExtendedPoint):
+            getattr(acc, c.name).limbs.index_copy_(
+                1, idx, getattr(s, c.name).limbs)
+    last = (offsets[1:] - 1).clamp(min=0, max=n - 1)
+    out = select_point(offsets[1:] > offsets[:-1],
+                       map_point(lambda x: x[:, last], acc), ident)
+    stages.mark("segment_sum")
+    return out
 
 
 # -- Named constant points --------------------------------------------------

@@ -577,6 +577,27 @@ def from_canonical(F: FieldSpec, x: torch.Tensor) -> torch.Tensor:
     return mul(F, x, const_mont(F, F.R, x.shape[1:], x.device))
 
 
+def sum_by_index(F: FieldSpec, a: torch.Tensor, index: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """Sums of elements by index: ``a`` (NLIMBS, m), ``index`` (m,) in
+    [0, n); element i of the result, (NLIMBS, n), is the sum mod p of the
+    elements whose index is i (0 where there is none), below 2p.
+
+    The limbs are added up as int64 in one pass over the lanes (each limb is
+    below 2^13: exact for fewer than 2^40 lanes).  Read as the columns of
+    one value V below m 2^260 < p 2^260, the limb sums take one Montgomery
+    reduction, V / R mod p, which is the sum in standard form (the lanes
+    are in Montgomery form), and one product by R^2 brings it back."""
+    if a.ndim != 2 or a.shape[0] != NLIMBS or index.shape != a.shape[1:]:
+        raise ValueError(f"sum_by_index: expected limbs (NLIMBS, m) and an "
+                         f"index (m,), got {tuple(a.shape)} and "
+                         f"{tuple(index.shape)}")
+    cols = torch.zeros((NACC, n), dtype=_I64, device=a.device)
+    cols[:NLIMBS].index_add_(1, index.to(device=a.device, dtype=_I64),
+                             a.to(_I64))
+    return from_canonical(F, _mont_reduce_rows(F, cols))
+
+
 # ---------------------------------------------------------------------------
 # Predicates
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Stage marks for a timing breakdown of the entry points.
 
-``affine_from_bytes``, ``window_sums_fused`` and ``msm_fused`` call
-``mark(name)`` at the end of each of their stages.  Nothing happens unless a
+``affine_from_bytes``, ``window_sums_fused``, ``msm_fused``,
+``segment_sum`` and ``verify_bundles`` call ``mark(name)`` at the end of
+each of their stages.  Nothing happens unless a
 caller installs a callback for a block of code::
 
     with stages.recording(lambda name: ...):
