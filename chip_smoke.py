@@ -30,7 +30,9 @@ drives the package's paths through the normal entry points:
       cofactor. random_extended (seeded torch.Generator) -> clear_cofactor
            -> into_subgroup -> to_bytes
     multi-scalar multiplication, 2^20 points P_i = [s_i]G8
-      msm. msm_fused(P, k)                     window-sums kernel + spine
+      msm. msm_fused(P, k)                     window-sums kernel +
+                                               msm_reduce + msm_fold (one
+                                               launch each, no sync)
       e2e. 32-byte encodings of the P_i -> affine_from_bytes -> to_extended
            -> msm_fused -> batch_normalize -> affine_to_bytes
       pippenger. msm_pippenger(P, k)           sort + prefix-scan kernel +
@@ -95,7 +97,8 @@ import torch
 N = 131072          # lanes of the scalar-multiplication paths
 N_MSM = 1 << 20     # points of the MSM paths
 RAGGED = 4099       # a batch no block size divides
-SPINE_LANES = (51, 16)  # the ladder launches of the MSM paths' spines
+SPINE_LANES = (51, 16)  # small ladder launches: the MSM spines' windows
+TAIL_BLOCKS = 264   # partials a window on an H100 SXM (2 blocks an SM)
 SEED = 20240607
 HEAD = 8            # leading lanes checked against the oracle
 # the int32 probes' shapes, the reference's (benches/roofline.py): a chain
@@ -253,6 +256,19 @@ def macs_msm(F, wbits: int, signed: bool) -> int:
     return m * (2 + built * (8 + 2) + n_windows(wbits, signed) * 8)
 
 
+def macs_msm_reduce(F, nwin: int, blocks: int) -> int:
+    """The partials' reduction: blocks - 1 additions a window, each the
+    other point's to_niels and an addition."""
+    return nwin * (blocks - 1) * (2 + 8) * macs_mul(F)
+
+
+def macs_msm_fold(F, nwin: int, wbits: int) -> int:
+    """The fold: (nwin - 1) * wbits doublings and nwin - 1 additions with
+    their to_niels."""
+    m, s = macs_mul(F), macs_square(F)
+    return (nwin - 1) * (wbits * (4 * s + 3 * m) + (2 + 8) * m)
+
+
 def fixed_base_scan_bound(table: torch.Tensor, lanes: int) -> dict:
     """The fixed-base scan's second bound term: every lane reads each
     window's whole slice of the packed table from shared memory, nwin x 3 x
@@ -376,6 +392,7 @@ def check_kernels(device):
     from jubjub_tpu_torch.ops.scan import prefix_scan, prefix_scan_plain
     from jubjub_tpu_torch.ops.sqrt import fq_sqrt, fq_sqrt_plain
     from jubjub_tpu_torch.ops.sqrt import op_counts as sqrt_op_counts
+    from jubjub_tpu_torch.ops import msm as msm_ops
 
     cases = []
     main = {}
@@ -569,6 +586,27 @@ def check_kernels(device):
     cases.append(check_msm_window_sums(N_MSM, 5, True, device, uniform=True))
     side.setdefault("msm_window_sums", {})["const"] = [cases[-1]]
 
+    # msm_reduce and msm_fold, the MSM's tail, limb for limb against
+    # reduce_sum and fold_plain: at the MSM paths' shapes (51 windows of an
+    # H100's 264 partials; 51 windows of 5 bits), one block, odd counts, the
+    # unsigned 4-bit and the Pippenger path's windows, and one window.
+    pts = tail_points(device)
+    for nwin, blocks in ((51, TAIL_BLOCKS), (51, 1), (63, 7), (16, 3)):
+        x = tail_planes(pts, (nwin, blocks), nwin + blocks)
+        measure("msm_reduce", f"{nwin} windows x {blocks} partials", blocks,
+                lambda: msm_ops.msm_reduce(x),
+                lambda: msm_ops.msm_reduce_plain(x), 20,
+                (nwin, blocks) == (51, TAIL_BLOCKS), (x,),
+                macs_msm_reduce(FQ_SPEC, nwin, blocks))
+    for nwin, wbits in ((51, 5), (63, 4), (16, 16), (1, 5)):
+        x = tail_planes(pts, (nwin,), nwin + wbits)
+        measure("msm_fold", f"{nwin} windows of {wbits} bits", nwin,
+                lambda: msm_ops.msm_fold(x, wbits),
+                lambda: msm_ops.fold_plain(x, wbits), 20,
+                (nwin, wbits) == (51, 5), (x,),
+                macs_msm_fold(FQ_SPEC, nwin, wbits))
+    del pts
+
     # prefix_scan: the Pippenger path's own input at 2^20 points (16 windows
     # x 33792 lanes x runs of 32 sorted points), and ragged slices of it: 5
     # and 1 steps (no multiple of the stage count), 3 windows and 1, and
@@ -643,6 +681,31 @@ def msm_inputs(n: int, seed: int, wbits: int, signed: bool, device,
               (p.u.limbs, p.v.limbs, p.z.limbs, (p.t1 * p.t2).limbs)]
     recode = signed_window_digits_wide if signed else window_digits_wide
     return planes, recode(k, wbits).contiguous()
+
+
+def tail_points(device) -> torch.Tensor:
+    """RAGGED points [m]G of the full group (torsion included) as the
+    fixed-base path leaves them: planes (5, 20, RAGGED)."""
+    from jubjub_tpu_torch.curve.scalar_mul import full_generator_table
+    from jubjub_tpu_torch.fields import Fr
+    p = full_generator_table().mul_fused(
+        Fr.from_int([i * 7 + 3 for i in range(RAGGED)], device=device))
+    return torch.stack([getattr(p, c).limbs
+                        for c in ("u", "v", "z", "t1", "t2")])
+
+
+def tail_planes(points: torch.Tensor, shape, seed: int) -> torch.Tensor:
+    """Planes (5, 20, *shape) of seeded picks from ``points``, with the
+    identity at about one position in nine."""
+    from jubjub_tpu_torch.curve.points import ExtendedPoint
+    rng = np.random.default_rng(SEED + seed)
+    idx = torch.from_numpy(rng.integers(0, points.shape[2], shape))
+    out = points[:, :, idx.to(points.device)].contiguous()
+    ident = torch.from_numpy(rng.integers(0, 9, shape) == 0).to(points.device)
+    one = ExtendedPoint.identity(device=points.device)
+    out[:, :, ident] = torch.stack([getattr(one, c).limbs for c in (
+        "u", "v", "z", "t1", "t2")])[:, :, None]
+    return out
 
 
 def pippenger_inputs(n: int, seed: int, device):
@@ -1143,9 +1206,20 @@ def drive_msm_path(which: str, device):
         if not torch.equal(fused, res):
             fail("path_pippenger: the result differs from msm_fused's")
         entry["msm_fused_equal"] = True
-        needed = ("mont_mul", "mont_square", "ladder", "prefix_scan")
+        needed = ("mont_mul", "mont_square", "prefix_scan", "msm_fold")
     else:
-        needed = ("mont_mul", "mont_square", "ladder", "msm_window_sums")
+        needed = ("mont_mul", "mont_square", "msm_window_sums")
+        # the tail: one launch of each kernel, no ladder, and (sync_probe)
+        # nothing that waits for the card
+        once = {name: counts[name] for name in (
+            "msm_window_sums", "msm_reduce", "msm_fold", "ladder")}
+        if once != {"msm_window_sums": 1, "msm_reduce": 1, "msm_fold": 1,
+                    "ladder": 0}:
+            fail(f"path_{which}: launches a call {once}, expected one each "
+                 "of the window sums, msm_reduce and msm_fold, no ladder")
+        if which == "msm":
+            entry["msm_fused_syncs"] = sync_probe(
+                lambda: jj.msm_fused(pts, k), pts.u.limbs)
     if which == "e2e":
         needed += ("fq_sqrt",)
     for name in needed:
@@ -1153,6 +1227,48 @@ def drive_msm_path(which: str, device):
             fail(f"path_{which}: kernel {name} was never launched")
     emit({f"path_{which}": entry})
     return counts, bytes(res.cpu().numpy())
+
+
+def sync_probe(fn, probe: torch.Tensor) -> dict:
+    """Synchronisations with the host that ``fn()`` (warmed up) makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them, beside a
+    control that reads one value of ``probe`` back (one synchronisation)
+    under the same mode.  Fails unless the control is seen and ``fn``
+    makes none, naming the package's frames at each one it makes."""
+    import traceback
+    import warnings
+
+    def where(message, *args, **kwargs):
+        # not the notice that setting the mode itself gives once
+        if "called a synchronizing" in str(message):
+            frames = [f"{f.filename.rsplit('jubjub_tpu_torch/', 1)[-1]}:"
+                      f"{f.lineno}" for f in traceback.extract_stack()
+                      if "jubjub_tpu_torch" in f.filename]
+            seen.append(" <- ".join(frames[::-1][:5]))
+
+    def count(f):
+        seen.clear()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = where
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                f()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return list(seen)
+
+    seen: list = []
+    call = count(fn)
+    out = {"call": len(call), "control": len(count(
+        lambda: probe[0, 0].item()))}
+    if out["control"] < 1:
+        fail(f"sync probe: the control's read-back was not seen: {out}")
+    if call:
+        fail(f"sync probe: the call synchronised with the host: {call}")
+    return out
 
 
 def msm_path_scalars(which: str) -> tuple[list[int], list[int]]:
@@ -1277,9 +1393,9 @@ def drive_sharded_msm(msm_bytes: bytes) -> dict:
                              "bytes differ from path_msm's")
                     for name, c in leg["launches"].items():
                         counts[name] += c
-                needed = {"fused": "msm_window_sums", "sorted": "prefix_scan",
-                          "torch": "ladder"}[algorithm]
-                for name in (needed, "ladder", "mont_mul", "mont_square"):
+                needed = {"fused": "msm_reduce", "sorted": "prefix_scan",
+                          "torch": "mont_mul"}[algorithm]
+                for name in (needed, "msm_fold", "mont_mul", "mont_square"):
                     if any(r[j]["launches"][name] <= 0 for r in ranks):
                         fail(f"path_sharded_msm {label}: a rank never "
                              f"launched {name}")
@@ -2123,6 +2239,12 @@ REPLACES = {
     "fq_sqrt": ("jubjub_tpu_torch/ops/csrc/sqrt.cu",
                 "jubjub_tpu/fields/sqrt.py:48 _sqrt_tonelli_shanks (XLA; "
                 "no Pallas kernel)"),
+    "msm_reduce": ("jubjub_tpu_torch/ops/csrc/msm_tail.cu",
+                   "jubjub_tpu/ops/pallas_msm.py:318 reduce_sum (XLA; no "
+                   "Pallas kernel)"),
+    "msm_fold": ("jubjub_tpu_torch/ops/csrc/msm_tail.cu",
+                 "jubjub_tpu/parallel/msm.py:110 horner_spine (XLA; no "
+                 "Pallas kernel)"),
 }
 
 

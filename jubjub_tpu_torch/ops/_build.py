@@ -48,7 +48,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_ROOT = os.path.join(_HERE, "build")
 
-KERNEL_SOURCES = ("mont", "fixed_base", "ladder", "msm", "scan",
+KERNEL_SOURCES = ("mont", "fixed_base", "ladder", "msm", "msm_tail", "scan",
                   "roofline", "sqrt")  # csrc/<name>.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -73,6 +73,8 @@ ARGTYPES = {
     "jj_ladder_signed": [_P] * 6 + [_I] + [_P] * 6 + [_L, _I, _P],
     "jj_ladder_affine": [_P] * 4 + [_I] + [_P] * 6 + [_L, _I, _P],
     "jj_msm_window_sums": [_P] * 5 + [_I, _L, _I, _I, _P, _L, _I, _P],
+    "jj_msm_reduce": [_P, _I, _L, _P, _P],
+    "jj_msm_fold": [_P, _I, _I, _P, _P],
     "jj_prefix_scan": [_P, _P, _L, _L, _L, _I, _I, _P],
     "jj_int_chain": [_I, _P, _P, _P, _I, _L, _I, _P],
     "jj_mont_mul_chain": [_P, _P, _P, _I, _L, _I, _P],
@@ -81,7 +83,9 @@ ARGTYPES = {
 FUNCTIONS = {"mont": ("jj_mont_mul", "jj_mont_square"),
              "fixed_base": ("jj_fixed_base",),
              "ladder": ("jj_ladder", "jj_ladder_signed", "jj_ladder_affine"),
-             "msm": ("jj_msm_window_sums",), "scan": ("jj_prefix_scan",),
+             "msm": ("jj_msm_window_sums",),
+             "msm_tail": ("jj_msm_reduce", "jj_msm_fold"),
+             "scan": ("jj_prefix_scan",),
              "roofline": ("jj_int_chain", "jj_mont_mul_chain"),
              "sqrt": ("jj_fq_sqrt",)}
 
@@ -333,7 +337,8 @@ def kernel_label(entry: str) -> str:
     ``int_chain_kernel<mul>`` or ``fq_sqrt_kernel``."""
     m = re.search(r"(mont_mul_chain|mont_mul|mont_square|fixed_base|fq_sqrt"
                   r"|ladder_affine|ladder"
-                  r"|msm_window_sums|prefix_scan|int_chain)_kernel"
+                  r"|msm_window_sums|msm_reduce|msm_fold|prefix_scan"
+                  r"|int_chain)_kernel"
                   r"|fe_mul|fe_square|pt_double|pt_add_extended_niels"
                   r"|pt_to_niels", entry)
     if not m:

@@ -20,10 +20,9 @@ thread adds, point by point in order, the entry its digit selects.  At the
 end group 0 adds group 1's partial (as a Niels point), so the output is one
 partial a window a block, ``(5, 20, nwin, blocks)``: 264 a window at 2^20
 points on an H100 instead of the 33792 of a per-thread design, which
-``curve.points.reduce_sum`` (a log-depth tree of group additions on the
-card's ``mont_mul`` kernel) sums.  Nothing needs padding: a batch of any
-size, 1 included, splits into blocks as it is, and a block without points
-gives the identity.
+``msm_reduce`` sums.  Nothing needs padding: a batch of any size, 1
+included, splits into blocks as it is, and a block without points gives the
+identity.
 
 ``CHUNK`` and ``BLOCKS_PER_SM`` are constants of this module, chosen by
 ``chip_smoke.py --sweep`` on an H100: see their notes.  Of the reference's
@@ -42,19 +41,20 @@ of the table with masked selects, so no address depends on a digit; since
 all window threads of a block read the same point's table at once, each
 word of the scan is one broadcast read from shared memory for the block.
 
-The Horner spine.  ``msm_fused`` folds the window sums as
-``sum_w [2^(wbits*w)] W_w``: one ``mul_extended`` over the ``nwin`` sums (the
-ladder kernel on the card, 51 lanes) and a ``reduce_sum``, instead of the
-reference's 255 dependent (double, add) steps on one point, which on the
-card would be thousands of launches on 20-limb tensors.  Each factor is
-below 2^250 < r, so the ladder's digits are the integer itself and the
-result is the same group element for any point, torsion included.
-``parallel.msm.horner_spine`` is the reference's spine, limb for limb.
+The tail (``csrc/msm_tail.cu``).  ``msm_reduce`` sums the partials of
+each window, one block of threads a window, in ``reduce_sum``'s tree order;
+``msm_fold`` folds the window sums as ``sum_w [2^(wbits*w)] W_w`` by Horner
+from the most significant window, on one thread.  Each is one launch where
+the plain PyTorch trees took some 5,800 and 4,300 a call, paced by the
+host.  The fold gives the group element of the reference's spine
+(``parallel.msm.horner_spine``), not its limbs: that spine starts from the
+identity and adds it between the windows.
 
-Plain version: ``window_sums_plain``, the same tables, selects and additions
-in the kernel's order, in plain PyTorch.  A CPU tensor takes it; a CUDA
-tensor launches the kernel or raises.  The partial sums are identical limb
-for limb.
+Plain versions: ``window_sums_plain``, the same tables, selects and
+additions in the kernel's order, in plain PyTorch; ``reduce_sum`` for
+``msm_reduce``; ``fold_plain`` for ``msm_fold``.  A CPU tensor takes them; a
+CUDA tensor launches the kernel or raises.  Each kernel's result is its
+plain version's limb for limb.
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ from .. import config, stages
 from ..device import sm_count
 from ..curve.points import (ExtendedNielsPoint, ExtendedPoint, map_point,
                             reduce_sum)
-from ..curve.scalar_mul import (_stack_points, _take_entry, mul_extended,
+from ..curve.scalar_mul import (_stack_points, _take_entry,
                                 signed_digit_windows,
                                 signed_window_digits_wide, take_signed,
                                 window_digits_wide)
@@ -77,6 +77,7 @@ _COORDS = ("u", "v", "z", "t1", "t2")
 MAX_ENTRIES = 32   # csrc/msm.cu: MSM_MAX_ENTRIES
 MSM_WINDOWS = 64   # csrc/msm.cu: threads a group, one a window (nwin <= 64)
 MSM_GROUPS = 2     # csrc/msm.cu: groups a block
+REDUCE_MAX_BLOCKS = 512  # csrc/msm_tail.cu: partials a window (shared memory)
 # Points a chunk: the points whose tables a block holds in shared memory at
 # once (2.5 KB a point at 16 entries), a multiple of MSM_GROUPS.  The table
 # build runs on CHUNK threads while the others wait, so a larger chunk
@@ -248,6 +249,99 @@ msm_window_sums.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# The tail: the partials' reduction and the fold
+# ---------------------------------------------------------------------------
+
+def _point(planes: torch.Tensor) -> ExtendedPoint:
+    return ExtendedPoint(*[Fq(planes[c]) for c in range(5)])
+
+
+def _planes(p: ExtendedPoint) -> torch.Tensor:
+    return torch.stack([getattr(p, c).limbs for c in _COORDS])
+
+
+def msm_reduce_plain(partials: torch.Tensor) -> torch.Tensor:
+    """``msm_reduce``'s plain version: ``reduce_sum`` over the blocks, in
+    plain PyTorch wherever the tensors lie."""
+    with mont.plain_only():
+        return _planes(reduce_sum(_point(partials), axis=1))
+
+
+def fold_plain(wsums: torch.Tensor, wbits: int) -> torch.Tensor:
+    """``msm_fold``'s plain version: ``sum_w [2^(wbits*w)] W_w`` of window
+    sums (5, NLIMBS, nwin) by Horner from the most significant window (acc
+    = W_{nwin-1}; then, for each lower window, ``wbits`` doublings and the
+    addition of W_w as an extended Niels point), in plain PyTorch wherever
+    the tensors lie."""
+    ws = _point(wsums)
+    with mont.plain_only():
+        acc = map_point(lambda a: a[:, -1], ws)
+        for w in range(wsums.shape[2] - 2, -1, -1):
+            for _ in range(wbits):
+                acc = acc.double()
+            acc = acc.add_extended_niels(
+                map_point(lambda a: a[:, w], ws).to_niels())
+    return _planes(acc)
+
+
+def msm_reduce(partials: torch.Tensor) -> torch.Tensor:
+    """Window sums from the window-sums kernel's partials: int32 (5, NLIMBS,
+    nwin, blocks) -> (5, NLIMBS, nwin), each window's partials summed in
+    ``reduce_sum``'s order (``msm_reduce_plain``)."""
+    if (partials.dtype != torch.int32 or partials.ndim != 4
+            or tuple(partials.shape[:2]) != (5, NLIMBS)):
+        raise ValueError(f"msm_reduce: partials must be int32 (5, {NLIMBS}, "
+                         f"nwin, blocks), got {partials.dtype} "
+                         f"{tuple(partials.shape)}")
+    _, _, nwin, blocks = partials.shape
+    if nwin < 1 or not 1 <= blocks <= REDUCE_MAX_BLOCKS:
+        raise ValueError(f"msm_reduce: at least one window and 1 to "
+                         f"{REDUCE_MAX_BLOCKS} blocks, got {nwin} and "
+                         f"{blocks}")
+    if not partials.is_cuda:
+        return msm_reduce_plain(partials)
+    partials = partials.contiguous()
+    out = torch.empty((5, NLIMBS, nwin), dtype=torch.int32,
+                      device=partials.device)
+    with torch.cuda.device(partials.device):
+        rc = _build.library("msm_tail").jj_msm_reduce(
+            partials.data_ptr(), nwin, blocks, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "msm_reduce")
+    msm_reduce.launches += 1
+    return out
+
+
+msm_reduce.launches = 0
+
+
+def msm_fold(wsums: torch.Tensor, wbits: int) -> torch.Tensor:
+    """``sum_w [2^(wbits*w)] W_w`` of window sums int32 (5, NLIMBS, nwin):
+    one point, (5, NLIMBS), by ``fold_plain``'s steps."""
+    if (wsums.dtype != torch.int32 or wsums.ndim != 3
+            or tuple(wsums.shape[:2]) != (5, NLIMBS) or wsums.shape[2] < 1):
+        raise ValueError(f"msm_fold: window sums must be int32 (5, {NLIMBS}, "
+                         f"nwin >= 1), got {wsums.dtype} "
+                         f"{tuple(wsums.shape)}")
+    if wbits < 1:
+        raise ValueError(f"msm_fold: wbits must be positive, got {wbits}")
+    if not wsums.is_cuda:
+        return fold_plain(wsums, wbits)
+    wsums = wsums.contiguous()
+    out = torch.empty((5, NLIMBS), dtype=torch.int32, device=wsums.device)
+    with torch.cuda.device(wsums.device):
+        rc = _build.library("msm_tail").jj_msm_fold(
+            wsums.data_ptr(), wsums.shape[2], wbits, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "msm_fold")
+    msm_fold.launches += 1
+    return out
+
+
+msm_fold.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
 
@@ -274,28 +368,25 @@ def window_sums_fused(points: ExtendedPoint, scalars: Fr,
                            t.limbs), digits, wbits, signed,
                           n_blocks(n, digits.device))
     stages.mark("window_sums_kernel")
-    out = reduce_sum(ExtendedPoint(*[Fq(acc[c]) for c in range(5)]), axis=1)
+    out = _point(msm_reduce(acc))
     stages.mark("partial_reduction")
     return out
 
 
 def fold_window_sums(wsums: ExtendedPoint, wbits: int) -> ExtendedPoint:
-    """``sum_w [2^(wbits*w)] W_w`` for window sums of shape (nwin,): one
-    variable-base multiplication over the batch, then a ``reduce_sum``.  The
-    same group element as ``parallel.msm.horner_spine``."""
-    (nwin,) = wsums.shape
-    factors = [1 << (wbits * w) for w in range(nwin)]
-    if factors[-1] >= Fr.MODULUS:
-        raise ValueError(f"fold_window_sums: 2^{wbits * (nwin - 1)} is not "
-                         "below r")
-    scaled = mul_extended(wsums, Fr.from_int(factors, device=wsums.device))
-    return reduce_sum(scaled, axis=0)
+    """``sum_w [2^(wbits*w)] W_w`` for window sums of shape (nwin,):
+    ``msm_fold``, one launch on the card.  The same group element as
+    ``parallel.msm.horner_spine``."""
+    if len(wsums.shape) != 1:
+        raise ValueError(f"fold_window_sums: expected window sums of shape "
+                         f"(nwin,), got {wsums.shape}")
+    return _point(msm_fold(_planes(wsums), wbits))
 
 
 def msm_fused(points: ExtendedPoint, scalars: Fr, wbits: int | None = None,
               signed: bool | None = None) -> ExtendedPoint:
-    """``sum_i scalars_i * points_i`` through the window-sums kernel and the
-    folded spine (stage mark "spine")."""
+    """``sum_i scalars_i * points_i`` through the window-sums kernel, the
+    partials' reduction and the fold (stage mark "spine")."""
     wbits = config.MSM_WBITS if wbits is None else wbits
     out = fold_window_sums(
         window_sums_fused(points, scalars, wbits, signed), wbits)

@@ -131,8 +131,9 @@ def msm_sharded(points: ExtendedPoint, scalars: Fr, group=None,
     takes CPU tensors and CUDA ones, which it moves through host memory
     itself), ``reduce_sum`` over the ranks (the reference's ``axis=0``), and
     the spine: on the CPU the reference's ``horner_spine``, limb for limb
-    its result; on the card ``ops/msm.py:fold_window_sums`` (one ladder
-    launch), the same group element, as ``msm_pippenger`` does.  Stage marks
+    its result; on the card ``ops/msm.py:fold_window_sums`` (one
+    ``msm_fold`` launch), the same group element, as ``msm_pippenger``
+    does.  Stage marks
     (``stages``): the window sums' own, then "window_sums", "all_gather",
     "reduce_sum", "spine"."""
     import torch.distributed as dist

@@ -22,8 +22,8 @@ by a sort, a per-lane prefix scan and prefix differences.  For each
      one reduction tree, and ``2^c * total`` by c doublings.
 
 The window sums are then folded into the result: on the card by
-``ops/msm.py:fold_window_sums`` (one ladder launch over the ``ceil(252/c)``
-sums; every factor 2^(c*w) is below r), on the CPU by the reference's
+``ops/msm.py:fold_window_sums`` (one ``msm_fold`` launch over the
+``ceil(252/c)`` sums), on the CPU by the reference's
 ``parallel.msm.horner_spine``; the same group element either way.
 
 Where the port differs from the reference, and why:

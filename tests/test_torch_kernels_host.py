@@ -28,7 +28,7 @@ from jubjub_tpu_torch.fields import Fq, Fr, mont
 from jubjub_tpu_torch.fields.element import FQ_SPEC, FR_SPEC
 from jubjub_tpu_torch.ops import _build
 from jubjub_tpu_torch.ops.fixed_base import fixed_base_plain
-from jubjub_tpu_torch.curve.points import batch_normalize
+from jubjub_tpu_torch.curve.points import batch_normalize, reduce_sum
 from jubjub_tpu_torch.ops.ladder import (ladder, ladder_affine_plain,
                                          ladder_plain, ladder_signed,
                                          ladder_signed_plain)
@@ -599,6 +599,87 @@ def test_msm_window_sums_scan_edge_digits(libs, signed, wbits, pattern):
     assert rc == 0 and torch.equal(acc, want)
 
 
+@pytest.fixture(scope="module")
+def tail_points():
+    """509 points [m]G of the full group (torsion included), as the
+    fixed-base path leaves them (z != 1, t1 and t2 apart): planes
+    (5, 20, 509)."""
+    p = sm.full_generator_table().mul_fused(
+        Fr.from_int([m * 7 + 3 for m in range(509)], device=CPU))
+    return torch.stack([getattr(p, c).limbs for c in EXT])
+
+
+def tail_planes(points, shape, seed):
+    """Planes (5, 20, *shape) of points drawn from ``points``, with the
+    identity at about one position in nine."""
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(rng.integers(0, points.shape[2], shape))
+    out = points[:, :, idx].clone()
+    ident = torch.from_numpy(rng.integers(0, 9, shape) == 0)
+    one = torch.stack([getattr(ExtendedPoint.identity(device=CPU), c).limbs
+                       for c in EXT])
+    out[:, :, ident] = one[:, :, None]
+    return out
+
+
+@pytest.mark.parametrize("nwin,blocks", [(51, 264), (51, 1), (63, 7),
+                                         (16, 3)])
+def test_msm_reduce_lanes(phase_libs, tail_points, nwin, blocks):
+    """The partials' reduction, one window after another, limb for limb
+    against ``reduce_sum(axis=1)``: the verify cell's 51 windows of an
+    H100's 264 blocks, a single block (a copy), and odd counts, whose last
+    element each level carries; identity partials among the inputs."""
+    partials = tail_planes(tail_points, (nwin, blocks), nwin * 1000 + blocks)
+    out = torch.empty((5, 20, nwin), dtype=torch.int32)
+    rc = phase_libs["msm_tail"].jj_msm_reduce(
+        partials.data_ptr(), nwin, blocks, out.data_ptr(), None)
+    want = reduce_sum(ExtendedPoint(*[Fq(partials[c]) for c in range(5)]),
+                      axis=1)
+    assert rc == 0
+    assert torch.equal(out, torch.stack([getattr(want, c).limbs
+                                         for c in EXT]))
+    assert torch.equal(out, msm_ops.msm_reduce(partials))
+
+
+@pytest.mark.parametrize("nwin,wbits", [(51, 5), (63, 4), (16, 16), (1, 5)])
+def test_msm_fold_lanes(phase_libs, tail_points, nwin, wbits):
+    """The fold of window sums, limb for limb against ``fold_plain``: the
+    signed 5-bit and unsigned 4-bit windows of ``msm_fused``, the 16
+    windows of 16 bits of ``msm_pippenger``, and a single window (no
+    doubling); identity window sums among the inputs."""
+    wsums = tail_planes(tail_points, (nwin,), nwin * 100 + wbits)
+    out = torch.empty((5, 20), dtype=torch.int32)
+    rc = phase_libs["msm_tail"].jj_msm_fold(wsums.data_ptr(), nwin, wbits,
+                                            out.data_ptr(), None)
+    assert rc == 0
+    assert torch.equal(out, msm_ops.fold_plain(wsums, wbits))
+
+
+def test_msm_tail_refuses_bad_shapes(libs, tail_points):
+    """The entry points refuse no window, no block, more blocks than shared
+    memory holds, and wbits 0 (-1); the wrappers refuse a plane that is
+    not int32 or lacks a coordinate, before any launch."""
+    partials = tail_planes(tail_points, (2, 3), 5)
+    out = torch.empty((5, 20, 2), dtype=torch.int32)
+    for nwin, blocks in ((0, 3), (2, 0), (2, msm_ops.REDUCE_MAX_BLOCKS + 1)):
+        assert libs["msm_tail"].jj_msm_reduce(
+            partials.data_ptr(), nwin, blocks, out.data_ptr(), None) == -1
+    for nwin, wbits in ((0, 5), (2, 0)):
+        assert libs["msm_tail"].jj_msm_fold(
+            partials.data_ptr(), nwin, wbits, out.data_ptr(), None) == -1
+    with pytest.raises(ValueError, match="msm_reduce"):
+        msm_ops.msm_reduce(partials.long())
+    with pytest.raises(ValueError, match="msm_reduce"):
+        msm_ops.msm_reduce(partials[:4])
+    with pytest.raises(ValueError, match="blocks"):
+        msm_ops.msm_reduce(tail_planes(
+            tail_points, (1, msm_ops.REDUCE_MAX_BLOCKS + 1), 6))
+    with pytest.raises(ValueError, match="msm_fold"):
+        msm_ops.msm_fold(partials[..., 0].long(), 5)
+    with pytest.raises(ValueError, match="wbits"):
+        msm_ops.msm_fold(partials[..., 0], 0)
+
+
 def test_generated_constants_follow_the_field_specs():
     """The header the kernels include is generated from FieldSpec: it holds
     both fields' limbs of p and the key changes with the sources."""
@@ -649,6 +730,10 @@ def test_generated_constants_follow_the_field_specs():
         == "prefix_scan_kernel"
     assert _build.kernel_label("_ZN2jj14fq_sqrt_kernelEPKiPiPhl") \
         == "fq_sqrt_kernel"
+    assert _build.kernel_label("_ZN2jj17msm_reduce_kernelEPKiiiPi") \
+        == "msm_reduce_kernel"
+    assert _build.kernel_label("_ZN2jj15msm_fold_kernelEPKiiiPi") \
+        == "msm_fold_kernel"
 
 
 def test_ranks_never_build(tmp_path, monkeypatch):

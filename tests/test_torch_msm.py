@@ -97,6 +97,28 @@ def test_horner_spine_limb_for_limb(jax_results):
     assert affine(msm_ops.fold_window_sums(ws, 5)) == affine(got)
 
 
+@pytest.mark.parametrize("nwin,wbits", [(51, 5), (16, 16)])
+def test_fold_window_sums_against_horner_spine_and_oracle(nwin, wbits):
+    """The fold on the CPU (``fold_plain``, the steps of the card's
+    ``msm_fold``) over window sums of the full group: torsion-carrying
+    points, a point of small order and the identity among them.  Its
+    encoding is the reference's spine's and the oracle's, at ``msm_fused``'s
+    51 windows of 5 bits and ``msm_pippenger``'s 16 of 16."""
+    ms = rand_ints(500 + nwin, nwin, 8 * oracle.R)
+    ms[1], ms[2] = 0, 3 * oracle.R  # the identity; a point of order 8
+    pts = [oracle.mul(oracle.GENERATOR, m) for m in ms]
+    ws = affine_ints_to_extended(jj, pts, device=CPU)
+    want = oracle.IDENTITY
+    for w, pt in enumerate(pts):
+        want = oracle.add(want, oracle.mul(pt, 1 << (wbits * w)))
+    assert oracle.mul(want, oracle.R) != oracle.IDENTITY  # torsion remains
+    for got in (msm_ops.fold_window_sums(ws, wbits),
+                horner_spine(ws, wbits=wbits)):
+        assert got.shape == ()
+        enc = jj.batch_normalize(got).to_bytes()
+        assert bytes(enc.numpy()) == oracle.to_bytes(want)
+
+
 def test_plain_partials_lane_order():
     """The plain version's block split: block b sums the points
     [b*P, (b+1)*P), P = ceil(N / blocks), in the kernel's order, so a
